@@ -1,8 +1,7 @@
 """Loose-vs-tight cold power-iteration policy: training-trajectory A/B.
 
-Commit 544c5fc switched cold inverse-root solves to a loose 1% relative
-power-iteration exit on the strength of a single-batch probe
-(`SOLVE_GAP_PROBE.json`: identical root errors, 22.6 -> 1.8 ms).  The
+A loose 1% relative power-iteration exit for cold inverse-root solves
+gave identical root errors to the tight exit on a single probe batch.  The
 estimate only scales the relative ridge and power iteration converges
 from below, so theory says a loose exit solves a slightly harder — never
 a wronger — problem; this experiment guards the policy at the TRAINING
@@ -32,10 +31,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-  jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 

@@ -4,9 +4,9 @@ The two batched inverse-root backends differ in null-space semantics —
 ``eigh`` zero-clips eigenvalues below ``1e-6 * lambda_max`` (upstream
 parity, `/root/reference/precondition/tearfree/shampoo.py:466-474`),
 ``newton`` ridge-regularizes them (the flagship optimizer's semantics,
-~14x faster on TPU v5e at the production [N,128,128] batch).  Whether a
-TPU-first framework may default to the fast backend is an *accuracy*
-question: do real training trajectories diverge?
+and a matmul-only solve).  Whether the framework may default to a
+matmul-only backend is an *accuracy* question: do real training
+trajectories diverge?
 
 This experiment trains the repo transformer LM on the committed fixture
 corpora (byte-level tokens from `tests/fixtures/datamix/*.jsonl`) under
@@ -19,10 +19,8 @@ substantially above the control band would still flag a real effect).
 
 Writes TEARFREE_BACKEND_TRAJ.json next to the repo root artifacts.
 
-Run on CPU (semantics are backend-independent; the XLA coupled-Newton
-path shares ridge semantics with the Pallas kernel, which
-tests/test_pallas_kernels.py pins) or on TPU (adds the Pallas kernel to
-the loop):  python benchmarks/tearfree_backend_trajectory.py [--steps N]
+Run on CPU (the semantics are platform-independent):
+  JAX_PLATFORMS=cpu python benchmarks/tearfree_backend_trajectory.py [--steps N]
 """
 
 import argparse
@@ -34,10 +32,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-  jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 

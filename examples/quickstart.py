@@ -1,6 +1,6 @@
 """Quickstart: distributed Shampoo on a small MLP, single device.
 
-Run:  python examples/quickstart.py        (TPU if available, else CPU)
+Run:  python examples/quickstart.py        (GPU if available, else CPU)
 
 Shows the optax-compatible surface: build the transformation, init state
 from params, jit the update. Configs written for
@@ -12,7 +12,7 @@ import os
 
 import jax
 
-if os.environ.get("EXAMPLES_CPU"):  # force CPU even when a TPU is attached
+if os.environ.get("EXAMPLES_CPU"):  # force CPU even when a GPU is attached
   jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp

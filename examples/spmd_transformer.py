@@ -1,22 +1,21 @@
 """SPMD training: transformer + Shampoo over a dp x tp device mesh.
 
-Run anywhere (forces an 8-device CPU mesh when no multi-chip TPU is
-attached):
+Run anywhere (forces an 8-device CPU mesh by default):
 
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/spmd_transformer.py
 
-On a TPU slice, drop the env vars: the same code shards over the real
-mesh — params by megatron-style TP rules, the batch over ``data``, and
-the stacked inverse-root solves over the whole mesh via the partition
-specs passed to the optimizer (the collectives ride ICI, inserted by
-XLA; no pmap, no manual collectives).
+On several GPUs, set SPMD_EXAMPLE_REAL_DEVICES=1: the same code shards over
+the real mesh — params by megatron-style TP rules, the batch over ``data``,
+and the stacked inverse-root solves over the whole mesh via the partition
+specs passed to the optimizer (collectives inserted by XLA; no pmap, no
+manual collectives).
 """
 
 import os
 
 # Default to an 8-virtual-device CPU mesh so the demo runs anywhere; set
-# SPMD_EXAMPLE_REAL_DEVICES=1 on a multi-chip TPU slice to use it instead.
+# SPMD_EXAMPLE_REAL_DEVICES=1 on a multi-GPU host to use it instead.
 _FORCE_CPU = not os.environ.get("SPMD_EXAMPLE_REAL_DEVICES")
 if _FORCE_CPU:
   os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -24,12 +23,6 @@ if _FORCE_CPU:
   os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
-
-if _FORCE_CPU:
-  # Needed in addition to the env var when a site plugin (e.g. a remote
-  # TPU PJRT backend) registered itself first.
-  jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 

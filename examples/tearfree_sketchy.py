@@ -14,7 +14,7 @@ import os
 
 import jax
 
-if os.environ.get("EXAMPLES_CPU"):  # force CPU even when a TPU is attached
+if os.environ.get("EXAMPLES_CPU"):  # force CPU even when a GPU is attached
   jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp

@@ -1,9 +1,9 @@
-"""precondition_tpu: a TPU-native preconditioning-optimizer framework.
+"""precondition_tpu: a preconditioning-optimizer framework in JAX.
 
-A from-scratch JAX/XLA/Pallas framework providing second-order preconditioned
-optimizers (distributed Shampoo, SM3, Sketchy/frequent-directions, quantized
-state) designed TPU-first: SPMD over `jax.sharding.Mesh`, batched matrix
-numerics that map onto the MXU, and Pallas kernels for the hot contractions.
+Second-order preconditioned optimizers (distributed Shampoo, SM3,
+Sketchy/frequent-directions, quantized state) built on JAX/XLA: SPMD over
+`jax.sharding.Mesh` and batched matrix numerics over stacked ``[N, m, m]``
+statistics.
 
 Capability parity target: google-research/precondition (see SURVEY.md).
 """

@@ -1,6 +1,6 @@
 """Bandit-driven data-mixture selection for LM finetuning.
 
-TPU-native equivalent of the reference's `datamix_gemma` research app
+Equivalent of the reference's `datamix_gemma` research app
 (`/root/reference/precondition/datamix_gemma/`): a zero-order bandit tunes
 dataset mixture weights by finetune-then-evaluate two-point probes, with
 exponentiated-gradient updates on the simplex.  Generic over models — the

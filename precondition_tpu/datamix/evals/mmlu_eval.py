@@ -3,7 +3,7 @@
 Parity with the reference's `mmlu_eval.py` approach: for each question,
 score every choice continuation by its total log-probability under the
 model and pick the argmax — no sampling, a single batched forward per
-choice set, which is the MXU-friendly way to run multiple choice.
+choice set, which is the matmul-friendly way to run multiple choice.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Equivalent of the reference's `TrainingLoop`
 (`/root/reference/precondition/datamix_gemma/training_loop.py`): a fixed
 number of steps over generator-produced batches with per-example loss
-``factors``, plus a validation step.  TPU-native differences: one jit'd
+``factors``, plus a validation step.  Differences: one jit'd
 SPMD step over a Mesh (no pmap, no host-side per-device batch slicing —
 GSPMD shards the batch), and the background prefetch thread feeds
 device_put'ed batches through a depth-1 queue so host tokenisation

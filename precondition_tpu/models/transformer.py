@@ -1,14 +1,14 @@
-"""Decoder-only transformer LM, TPU-first.
+"""Decoder-only transformer LM.
 
 The reference's end-to-end application trains Gemma-2B with pmap
 (`/root/reference/precondition/datamix_gemma/training_loop.py`); this module
 is the framework's own flagship: a from-scratch decoder LM written for
-jit+Mesh SPMD — bfloat16 activations on the MXU, f32 params/optimizer state,
+jit+Mesh SPMD — bfloat16 activations, f32 params/optimizer state,
 explicit tensor-parallel sharding annotations, `lax` control flow only, and
-`jax.checkpoint` on the blocks so activation memory trades against HBM
-bandwidth.
+`jax.checkpoint` on the blocks so activation memory trades against
+recomputation.
 
-Tensor-parallel layout (megatron-style, collectives ride ICI):
+Tensor-parallel layout (megatron-style):
   * qkv / mlp-in kernels shard their *output* feature axis on ``model``;
   * out-proj / mlp-out kernels shard their *input* feature axis on
     ``model`` — the row-parallel matmul emits one psum per block;
@@ -202,7 +202,7 @@ def decode_step(params, caches, tokens: Array, pos,
 
   Returns ``(logits [b, vocab], caches)``.  The KV-cache layout keeps the
   sequence axis contiguous so the per-step dynamic_update_slice is a cheap
-  VMEM-resident write under XLA.
+  in-place write under XLA.
   """
   x = params["embed"]["table"][tokens].astype(cfg.dtype)
   x = x + params["pos_embed"]["table"][pos].astype(cfg.dtype)

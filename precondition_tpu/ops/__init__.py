@@ -1,6 +1,4 @@
 """Matrix-function numerics kernels (L1 of the stack).
 
-Everything here is pure and jit/vmap-safe; the hot paths have Pallas TPU
-implementations under `precondition_tpu.ops.pallas` with jnp fallbacks kept
-for testing and CPU execution.
+Everything here is pure jax.numpy/lax and jit/vmap-safe.
 """

@@ -1,10 +1,10 @@
-"""Matrix inverse p-th root numerics for TPU.
+"""Matrix inverse p-th root numerics.
 
 Computes ``(A + eps*I)^{-1/p}`` for symmetric PSD ``A`` — the kernel at the
 heart of Shampoo-style preconditioning.  Two algorithms:
 
 * **Coupled Newton iteration** (Higham, *Functions of Matrices*, eq. 7.18):
-  all-matmul inner loop, maps straight onto the TPU MXU.  Includes the
+  an all-matmul inner loop.  Includes the
   production guard rails of the reference implementation
   (`/root/reference/precondition/distributed_shampoo.py:702-940`): a ridge
   retry ladder (eps x10 per retry, up to 6 tries), an error-ratio divergence
@@ -16,16 +16,15 @@ heart of Shampoo-style preconditioning.  Two algorithms:
   formed as ``(U sqrt(e^{-1/p})) @ (U sqrt(e^{-1/p}))^T`` so it is exactly
   symmetric.
 
-TPU-first design notes (differences from the reference, which is f64 CPU-style
-code vmapped one matrix at a time):
+Design notes (differences from the reference, which is f64 CPU-style code
+vmapped one matrix at a time):
 
-* The iteration dtype defaults to float32 on TPU (no native f64) and float64
-  when ``jax_enable_x64`` is on.  The eigh path is the accuracy fallback at
-  high condition numbers, exactly as the reference tolerates Newton failures
-  above cond 1e6.
+* The iteration dtype is float32 and float64 when ``jax_enable_x64`` is on.
+  The eigh path is the accuracy fallback at high condition numbers, exactly
+  as the reference tolerates Newton failures above cond 1e6.
 * Everything is expressed with `lax.while_loop` + fixed-shape matmuls at
   ``Precision.HIGHEST`` so a `vmap` over a stacked ``[B, n, n]`` statistics
-  batch compiles to one fused MXU program.
+  batch compiles to one batched program.
 * `mat_power` takes a *traced* exponent (blocks of different tensor ranks are
   batched together), implemented as square-and-multiply.
 """
@@ -40,8 +39,8 @@ from jax import lax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
 
+from precondition_tpu.utils import pytree
 from precondition_tpu.utils.diagnostics import (
     FDDiagnostics, InversePthRootDiagnostics, LOBPCGDiagnostics)
 
@@ -50,29 +49,23 @@ _EPSILON = 1e-25
 
 # Cold-solve power-iteration exit policy knob.  None = the reference's
 # tight absolute 1e-6 exit; a float = loose RELATIVE exit at that
-# tolerance.  The TPU fleet paths (`optim/shampoo._solve_batched`, the
-# Pallas wrapper) adopt the loose 1% policy after measurement
-# (SOLVE_GAP_PROBE.json: 22.6 -> 1.8 ms at identical root errors); this
-# module-level knob lets `benchmarks/pi_policy_trajectory.py` A/B the
-# same policy on CPU training trajectories, guarding it against
-# ill-conditioned regimes the probe batch doesn't cover.
+# tolerance.  `benchmarks/pi_policy_trajectory.py` uses it to A/B the
+# loose policy on CPU training trajectories (PI_POLICY_TRAJ.json).
 COLD_POWER_ITERATION_TOLERANCE = None
 
 # Default Newton chunk size when `newton_unroll` is not passed explicitly.
 # Chunking amortises the vmapped-while select/copy overhead but multiplies
-# compute for fast-converging solves: measured 37->28 ms on a slow-converging
-# random batch (20 iters) but 70->121 ms on the bench fixture's
-# near-converged statistics (2-6 iters). Production statistics are the
-# latter, so the default stays 1; raise explicitly for cold-start batches.
+# compute for fast-converging solves, and near-converged statistics (a few
+# iterations) are the common case, so the default stays 1.
 DEFAULT_NEWTON_UNROLL = 1
 
 
 def root_dtype() -> jnp.dtype:
-  """Iteration dtype: f64 when x64 is enabled (CPU tests), else f32 (TPU)."""
+  """Iteration dtype: f64 when x64 is enabled (CPU tests), else f32."""
   return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
-@struct.dataclass
+@pytree.dataclass
 class RootMetrics:
   """Diagnostics for one inverse-pth-root solve.
 
@@ -82,21 +75,21 @@ class RootMetrics:
   error ratio, derived max eigenvalue, and how many ridge retries ran.
   """
 
-  error: Array = struct.field(default_factory=lambda: jnp.zeros([], jnp.float32))
-  iterations: Array = struct.field(default_factory=lambda: jnp.zeros([], jnp.float32))
-  error_ratio: Array = struct.field(default_factory=lambda: jnp.zeros([], jnp.float32))
-  max_eigenvalue: Array = struct.field(default_factory=lambda: jnp.zeros([], jnp.float32))
-  retries: Array = struct.field(default_factory=lambda: jnp.zeros([], jnp.float32))
+  error: Array = pytree.field(default_factory=lambda: jnp.zeros([], jnp.float32))
+  iterations: Array = pytree.field(default_factory=lambda: jnp.zeros([], jnp.float32))
+  error_ratio: Array = pytree.field(default_factory=lambda: jnp.zeros([], jnp.float32))
+  max_eigenvalue: Array = pytree.field(default_factory=lambda: jnp.zeros([], jnp.float32))
+  retries: Array = pytree.field(default_factory=lambda: jnp.zeros([], jnp.float32))
   # Rich on-demand diagnostics (`generate_diagnostics=True`), MaskedNode
   # otherwise so the default state carries zero extra bytes.  Mirrors the
   # reference's `TrainingMetrics` diagnostics fields
   # (`distributed_shampoo.py:339-364`).
-  lobpcg: Any = struct.field(default_factory=optax.MaskedNode)
-  inverse_pth_root_diagnostics: Any = struct.field(
+  lobpcg: Any = pytree.field(default_factory=optax.MaskedNode)
+  inverse_pth_root_diagnostics: Any = pytree.field(
       default_factory=optax.MaskedNode)
-  conditioned_inverse_pth_root_diagnostics: Any = struct.field(
+  conditioned_inverse_pth_root_diagnostics: Any = pytree.field(
       default_factory=optax.MaskedNode)
-  fd: Any = struct.field(default_factory=optax.MaskedNode)
+  fd: Any = pytree.field(default_factory=optax.MaskedNode)
 
 
 def _padding_mask(n: int, padding_start, dtype) -> Array:
@@ -145,7 +138,7 @@ def power_iteration(
     ev_new = jnp.einsum("i,i->", v, mv, precision=precision)
     if relative_tolerance:
       # The eigenvalue only scales the relative ridge; an absolute 1e-6
-      # tolerance over-iterates (each matvec re-reads the matrix from HBM).
+      # tolerance over-iterates (each matvec re-reads the matrix from device memory).
       # ``relative_floor=1.0`` makes sub-unit eigenvalues exit immediately
       # (fine for ridge scaling, where a low estimate only shrinks the
       # ridge); pass 0.0 for a genuinely relative exit when the estimate
@@ -172,10 +165,10 @@ def mat_power(
   """``m**p`` by square-and-multiply; ``p`` may be static or traced.
 
   Parity: `distributed_shampoo.py:655-678`.  When ``p`` is a python int the
-  exponentiation unrolls to pure matmuls — crucial on TPU, where a traced-p
-  while_loop under vmap costs several full-batch select/copy passes per
-  Newton iteration (measured ~10x the matmul cost).  The optimizer layers
-  bucket statistics by exponent so the static path is the hot one.
+  exponentiation unrolls to pure matmuls; a traced-p while_loop under vmap
+  adds full-batch select/copy passes to every Newton iteration.  The
+  optimizer layers bucket statistics by exponent so the static path is the
+  hot one.
   """
   if isinstance(p, int):
     if p <= 0:
@@ -303,15 +296,15 @@ def matrix_inverse_pth_root(
     the current statistics.
 
   A mixed-precision "ladder" (coarse bf16-tier phase, then an invariant
-  rebuild, then a full-precision polish) used to be available here and in
-  the Pallas kernel.  It is RETIRED: the coupled iteration is only
+  rebuild, then a full-precision polish) used to be available here.  It is
+  RETIRED: the coupled iteration is only
   self-correcting in ``M``; rebuilding ``M = H^p (A + r I)`` once does
   not restore the commutativity of ``H`` with ``A`` that coarse rounding
   destroyed, so the polish converges ``M -> I`` while ``H`` drifts off
   the principal root — the solver then self-reports 1e-6 residuals while
   emitting roots whose true residual is unbounded on ill-conditioned
-  input (measured ~1e8 on TPU at the bench batch).  The measured benefit
-  was ~3%: the solve is latency-bound, not matmul-throughput-bound.
+  input.  Any lower-precision scheme must therefore be judged by the true
+  residual (`benchmarks/numerics_check.py`), not the self-reported error.
 
   Returns:
     ``(root, RootMetrics)``; root in ``matrix.dtype``.
@@ -658,8 +651,7 @@ def batched_spectral_projector(
   """Smooth spectral projector ``P ~= 1{eig(A) > threshold}``, batched.
 
   Matmul-only construction of the step function of a symmetric matrix —
-  the TPU-native route to eigh-style null-space masking without an
-  eigendecomposition.  On ``B_0 = (A - t I) / s`` (spectrum in [-1, 1] for
+  eigh-style null-space masking without an eigendecomposition.  On ``B_0 = (A - t I) / s`` (spectrum in [-1, 1] for
   ``s >~ lambda_max``) iterate the Newton–Schulz quintic for the matrix
   sign function::
 
@@ -686,9 +678,8 @@ def batched_spectral_projector(
   iterations (<= ~5 at d=128).
 
   Each iteration is 3 batched ``[N, d, d]`` matmuls (``B^2``, ``B^4``, and
-  the polynomial application), which pipeline through the MXU; at the
-  production [712, 128, 128] batch the full 30-iteration filter costs
-  ~90 batched matmuls ~= a third of one cold coupled-Newton solve.
+  the polynomial application), so the 30-iteration filter is ~90 batched
+  matmuls.
 
   Args:
     stats: ``[N, d, d]`` symmetric batch.
@@ -737,9 +728,9 @@ def batched_inverse_pth_root(
   are all-gathered (see `precondition_tpu.parallel`).
 
   Pass a python-int ``exponents`` when the whole batch shares one exponent:
-  the inner `mat_power` then unrolls statically, which is several times
-  faster on TPU than the traced-exponent path (the optimizer buckets
-  statistics by exponent to exploit this).
+  the inner `mat_power` then unrolls statically instead of running the
+  traced-exponent loop (the optimizer buckets statistics by exponent to
+  exploit this).
 
   ``prevs`` (``[B, n, n]``, optional) warm-starts each solve from the
   previous roots; under vmap the whole batch pays the iteration count of

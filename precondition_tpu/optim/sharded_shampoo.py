@@ -26,17 +26,17 @@ from jax import lax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
 
 from precondition_tpu.ops import pth_root
 from precondition_tpu.ops.pth_root import RootMetrics
+from precondition_tpu.utils import pytree
 from precondition_tpu.utils import shapes as shape_utils
 from precondition_tpu.utils.control import tree_lazy_cond
 
 Array = jax.Array
 
 
-@struct.dataclass
+@pytree.dataclass
 class GlobalShardedParameterStats:
   """The concatenated, mesh-sharded half of the state."""
 
@@ -45,7 +45,7 @@ class GlobalShardedParameterStats:
   exponents: Array         # [N]
 
 
-@struct.dataclass
+@pytree.dataclass
 class LocalShardedParameterStats:
   """Per-parameter state; sharding mirrors the parameter itself."""
 
@@ -53,8 +53,8 @@ class LocalShardedParameterStats:
   diagonal_momentum: Array
   momentum: Array
   training_metrics: Any
-  index_start: np.int32 = struct.field(pytree_node=False)
-  sizes: Any = struct.field(pytree_node=False)
+  index_start: np.int32 = pytree.field(pytree_node=False)
+  sizes: Any = pytree.field(pytree_node=False)
 
 
 class ShardedShampooStats(NamedTuple):
@@ -91,12 +91,16 @@ def make_sharded_fns(
     generate_training_metrics,
     init_metrics,
     reuse_preconditioner=False,
+    use_stacked,
 ):
   """Build (init_fn_state_factory, sharded_update_fn).
 
   All per-mode policy (grafting math, statistics EMA, the batched solver)
   is injected from `distributed_shampoo` so both modes share one
-  implementation of the math.
+  implementation of the math.  ``use_stacked`` is the data-parallel mode's
+  condition for its stacked per-axis layout; params that meet it are read
+  from and written to the global arrays as whole ``[nb * axes, m, m]``
+  chunks instead of one slot at a time.
   """
 
   def _param_layout(params_flat):
@@ -167,19 +171,6 @@ def make_sharded_fns(
     layouts, n, padded_n, max_size, _ = _param_layout(params_flat)
     slot_sizes, slot_exps = _slot_info(params_flat, layouts, n, padded_n)
 
-    padded_stats = []
-    padded_pre = []
-    for slot in range(padded_n):
-      d = slot_sizes[slot]
-      if d:
-        padded_stats.append(shape_utils.pad_square_matrix(
-            matrix_epsilon * jnp.eye(d, dtype=jnp.float32), max_size))
-        padded_pre.append(shape_utils.pad_square_matrix(
-            jnp.eye(d, dtype=jnp.float32), max_size))
-      else:  # batch-padding slot
-        padded_stats.append(jnp.eye(max_size, dtype=jnp.float32))
-        padded_pre.append(jnp.eye(max_size, dtype=jnp.float32))
-
     local_stats_flat = []
     for param, (index_start, sizes) in zip(params_flat, layouts):
       diag = jnp.zeros_like(param) if graft_has_diag_stats else []
@@ -192,10 +183,16 @@ def make_sharded_fns(
           sizes,
       ))
 
-    if padded_stats:
+    if padded_n:
+      # Slot statistics start as `pad_square_matrix(eps * I_d)`: eps on the
+      # first d diagonal entries, 1 on the padded ones (and everywhere on
+      # batch-padding slots, d = 0); every slot's root starts as I.
+      eye = jnp.eye(max_size, dtype=jnp.float32)
+      on = np.arange(max_size)[None, :] < np.asarray(slot_sizes)[:, None]
+      diag = np.where(on, np.float32(matrix_epsilon), np.float32(1.0))
       global_stats = GlobalShardedParameterStats(
-          jnp.stack(padded_stats),
-          jnp.stack(padded_pre),
+          eye * jnp.asarray(diag)[:, None, :],
+          jnp.broadcast_to(eye, (padded_n, max_size, max_size)),
           jnp.asarray(slot_exps, jnp.int32))
     else:
       global_stats = GlobalShardedParameterStats(
@@ -262,15 +259,41 @@ def make_sharded_fns(
         stats=ShardedShampooStats(global_shapes,
                                   jax.tree.unflatten(treedef, local)))
 
-  def _slice_stats(global_stats, local_stat):
-    """Materialise per-param statistic/preconditioner lists from the
-    global arrays (static slicing — index_start/sizes are python ints)."""
+  def _chunk_axes(param, sizes, max_size):
+    """Preconditioned-axis count when the param's slots are whole chunks.
+
+    A param qualifies when it has the data-parallel mode's stacked layout
+    and every block fills a whole slot: its slots are then ``nb * axes``
+    consecutive ``[m, m]`` matrices in (block, axis) order.  Returns None
+    for params that keep per-slot slicing (ragged or padded blocks).
+    """
+    if not (use_stacked and sizes) or any(d != max_size for d in sizes):
+      return None
+    pre = preconditioner_from_params(param)
+    return len(pre.stacked_shapes()) if pre.stacked_layout() else None
+
+  def _slice_stats(global_stats, local_stat, axes):
+    """Per-param statistics/preconditioners from the global arrays.
+
+    Static slicing (index_start/sizes are python ints): one slice of the
+    global array per param, its contiguous ``[start, start + count)``
+    range, then split locally: per axis ``[nb, m, m]`` in the stacked
+    layout, else one ``[d, d]`` crop per slot.  Each slice of a sharded
+    array is a collective, so slicing thousands of blocks one by one is
+    what this avoids.
+    """
     start = int(local_stat.index_start)
-    stats, pre = [], []
-    for i, d in enumerate(local_stat.sizes):
-      stats.append(global_stats.statistics[start + i, :d, :d])
-      pre.append(global_stats.preconditioners[start + i, :d, :d])
-    return stats, pre
+    count = len(local_stat.sizes)
+
+    def read(x):
+      chunk = x[start:start + count]
+      if axes:
+        m = x.shape[-1]
+        chunk = chunk.reshape(count // axes, axes, m, m)
+        return [chunk[:, a] for a in range(axes)]
+      return [chunk[i, :d, :d] for i, d in enumerate(local_stat.sizes)]
+
+    return read(global_stats.statistics), read(global_stats.preconditioners)
 
   def _constrain(x, spec):
     if spec is None:
@@ -290,10 +313,11 @@ def make_sharded_fns(
     # 1) per-param statistics update + grad transform with current roots.
     new_local_flat = []
     updates_flat = []
-    slot_stats = [None] * padded_n
+    chunks = {}  # index_start -> [k, m, m] fresh statistics, k >= 1
     for grad, local_stat, param in zip(grads_flat, local_stats_flat,
                                        params_flat):
-      stats, pre = _slice_stats(global_stats, local_stat)
+      axes = _chunk_axes(param, local_stat.sizes, max_size)
+      stats, pre = _slice_stats(global_stats, local_stat, axes)
       param_state = _LocalAdapter(local_stat, stats, pre)
       param_state = update_statistics(grad, param_state, param, state.count)
       update, param_state = transform_grad(grad, param_state, param,
@@ -306,9 +330,15 @@ def make_sharded_fns(
           local_stat.training_metrics,
           local_stat.index_start,
           local_stat.sizes))
-      for k, s in enumerate(param_state.statistics):
-        slot_stats[int(local_stat.index_start) + k] = (
-            shape_utils.pad_square_matrix(s, max_size))
+      if not local_stat.sizes:
+        continue
+      if axes:
+        fresh = jnp.stack(param_state.statistics, axis=1)
+        fresh = fresh.reshape((-1,) + fresh.shape[2:])
+      else:
+        fresh = jnp.stack([shape_utils.pad_square_matrix(s, max_size)
+                           for s in param_state.statistics])
+      chunks[int(local_stat.index_start)] = fresh
 
     updates = jax.tree.unflatten(treedef, updates_flat)
 
@@ -319,10 +349,11 @@ def make_sharded_fns(
               global_stats, jax.tree.unflatten(treedef, new_local_flat)))
 
     # 2) restack + pad the global statistics array (slot order).
-    for slot in range(padded_n):
-      if slot_stats[slot] is None:
-        slot_stats[slot] = jnp.eye(max_size, dtype=jnp.float32)
-    stacked = _constrain(jnp.stack(slot_stats), statistics_partition_spec)
+    parts = [chunks[start] for start in sorted(chunks)]
+    if padded_n > n:
+      parts.append(jnp.broadcast_to(jnp.eye(max_size, dtype=jnp.float32),
+                                    (padded_n - n, max_size, max_size)))
+    stacked = _constrain(jnp.concatenate(parts), statistics_partition_spec)
     pads = jnp.asarray(slot_sizes, jnp.int32)
 
     # 3) gated sharded solve, one static-exponent slice per group.

@@ -7,7 +7,7 @@ axis (``sum(d_i)`` memory instead of ``prod(d_i)``).  The effective
 second-moment estimate for entry ``(i0..ik)`` is the *min* over its covering
 accumulators; after the update, each accumulator is re-sketched as the *max*
 of the dense statistic over the other axes.  Both the min-broadcast and the
-max-reduce are cheap VPU ops on TPU and fuse with the surrounding
+max-reduce are cheap elementwise ops and fuse with the surrounding
 elementwise work under XLA.
 
 Behavioural parity with `/root/reference/precondition/sm3.py:28-168`,

@@ -1,9 +1,9 @@
 """Mesh construction and sharding rules.
 
 The reference's distribution story is pmap + hand-rolled round-robin
-(`/root/reference/precondition/distributed_shampoo.py:2816-3010`); the
-TPU-native equivalent is a `jax.sharding.Mesh` with named axes and
-`NamedSharding` annotations, letting XLA lower the collectives onto ICI.
+(upstream `precondition/distributed_shampoo.py:2816-3010`); here it
+is a `jax.sharding.Mesh` with named axes and `NamedSharding` annotations,
+letting XLA insert the collectives.
 
 Axis conventions used throughout the framework:
   * ``data``  — data parallelism (batch axis, gradient all-reduce).

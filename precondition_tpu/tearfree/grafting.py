@@ -17,12 +17,12 @@ import enum
 import functools
 from typing import Any, NamedTuple
 
-from flax import struct
 import jax
 import jax.numpy as jnp
 import optax
 
 from precondition_tpu.tearfree import praxis_shim
+from precondition_tpu.utils import pytree
 
 
 @enum.unique
@@ -86,7 +86,7 @@ def _validate(options: Options):
           f"clipping_threshold ({options.clipping_threshold}) should be >= 1")
 
 
-@struct.dataclass
+@pytree.dataclass
 class _GraftMask:
   """Sentinel replacing leaves excluded from preconditioning."""
 

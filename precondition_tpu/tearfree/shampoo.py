@@ -4,9 +4,8 @@ Unlike the core optimizer (`precondition_tpu.optim.shampoo`), which keeps a
 python list of per-block factors, this layer stores each tensor's blocks
 *stacked*: per axis, one ``[N, B, B]`` array over all ``N`` blocks.  The
 statistics contraction is a single vmapped tensordot and the inverse roots
-are one batched eigh per axis — both map directly onto the MXU with no
-per-block dispatch, which is the TPU-native way to express block-diagonal
-preconditioning.  Semantics parity with
+are one batched eigh per axis — no per-block dispatch.  Semantics parity
+with
 `/root/reference/precondition/tearfree/shampoo.py`.
 
 Constraints (enforced at init, parity with the reference's `_validate` /
@@ -44,23 +43,20 @@ class Options:
       ``"eigh"`` (upstream-parity semantics) eigendecomposes and treats
       eigenvalues below ``1e-6 * lambda_max`` as exactly zero —
       pseudo-inverse-root behavior on rank-deficient early-training
-      covariances.  Exact but slow on TPU (batched eigh measured 400 ms
-      at the [712,128,128] fixture, `STEP_BREAKDOWN_TPU.json`).
+      covariances.
 
-      ``"newton"`` runs the coupled-Newton solver (the Pallas tile
-      kernel on TPU for supported block sizes, the batched XLA iteration
-      elsewhere) with distributed_shampoo-style ridge semantics:
-      near-null directions get ``(w + 1e-6 * lambda_max)^{-1/p}`` rather
-      than zero.  ~14x eigh's TPU throughput, but MEASURED to degrade
-      early-training trajectories (round-4
-      `TEARFREE_BACKEND_TRAJ.json`: tail-loss gap 5.1x seed noise —
+      ``"newton"`` runs the batched coupled-Newton solver with
+      distributed_shampoo-style ridge semantics: near-null directions get
+      ``(w + 1e-6 * lambda_max)^{-1/p}`` rather than zero.  MEASURED to
+      degrade early-training trajectories
+      (`TEARFREE_BACKEND_TRAJ.json`: tail-loss gap 5.1x seed noise —
       the ridge root's ~eps^{-1/p} ~= 30x weighting of near-null
       directions amplifies unlearned-direction noise that eigh's
       zero-clip ignores).  Opt in only when the preconditioning interval
       or a late ``start_preconditioning_step`` keeps rank-deficient
       covariances out of the solve.
 
-      ``"filtered"`` reproduces eigh's zero-clip at Newton speed: the
+      ``"filtered"`` reproduces eigh's zero-clip with matmuls only: the
       same coupled-Newton ridge root composed with a matmul-only smooth
       spectral projector onto eigenvalues above ``1e-6 * lambda_max``
       (`ops.pth_root.batched_spectral_projector`, Newton–Schulz sign
@@ -68,9 +64,7 @@ class Options:
       experiment shows its tail-loss gap to eigh *within* the seed-noise
       band (`TEARFREE_BACKEND_TRAJ.json`, filtered rows).
 
-      ``"auto"`` (default) resolves at trace time to ``"filtered"`` on
-      TPU and ``"eigh"`` elsewhere — eigh-clip semantics everywhere, at
-      the fast solver's cost on the hardware where it matters.
+      ``"auto"`` (default) resolves to ``"eigh"``.
   """
 
   block_size: int = 1024
@@ -269,40 +263,22 @@ def _batched_max_evs(cov: jax.Array, pads: jax.Array) -> jax.Array:
           relative_tolerance=True, relative_floor=0.0)[1])(cov, pads)
 
 
-def _batched_ridge_root(p: int, cov: jax.Array, pads, max_evs) -> jax.Array:
-  """Batched ridge-regularized ``cov^{-1/p}``: Pallas tile kernel on TPU
-  for supported block sizes, the batched XLA coupled Newton elsewhere."""
+def _batched_ridge_root(p: int, cov: jax.Array, pads) -> jax.Array:
+  """Batched ridge-regularized ``cov^{-1/p}`` (coupled Newton)."""
   from precondition_tpu.ops import pth_root
 
-  if jax.default_backend() == "tpu":
-    from precondition_tpu.ops.pallas import newton_root
-
-    if newton_root.supported(cov.shape[-1]):
-      roots, _ = newton_root.batched_inverse_pth_root_pallas(
-          cov, p, pads, max_evs=max_evs)
-      return roots
   roots, _ = pth_root.batched_inverse_pth_root(cov, p, pads)
   return roots
 
 
 def _newton_inv_root(p: int, cov: jax.Array) -> jax.Array:
-  """Batched coupled-Newton ``cov^{-1/p}`` (ridge-regularized semantics).
-
-  TPU routes supported block sizes through the fused Pallas tile kernel
-  with fleet-wide external eigenvalues (same placement argument as
-  `optim/shampoo._solve_batched`); elsewhere the batched XLA iteration
-  runs.  ~14x the batched eigh's TPU throughput at production shapes.
-  """
+  """Batched coupled-Newton ``cov^{-1/p}`` (ridge-regularized semantics)."""
   n, d = cov.shape[0], cov.shape[-1]
-  pads = jnp.full((n,), d, jnp.int32)
-  max_evs = None
-  if jax.default_backend() == "tpu":
-    max_evs = _batched_max_evs(cov, pads)
-  return _batched_ridge_root(p, cov, pads, max_evs)
+  return _batched_ridge_root(p, cov, jnp.full((n,), d, jnp.int32))
 
 
 def _filtered_inv_root(p: int, cov: jax.Array) -> jax.Array:
-  """eigh null-space semantics at coupled-Newton speed.
+  """eigh null-space semantics from matmuls only.
 
   The eigh backend's distinguishing behaviour is the zero-clip: directions
   with eigenvalue ``<= 1e-6 * lambda_max`` contribute NOTHING to the
@@ -312,8 +288,7 @@ def _filtered_inv_root(p: int, cov: jax.Array) -> jax.Array:
   round-4 "diverge" verdict on the plain newton backend).  This backend
   reproduces the clip without an eigendecomposition:
 
-    1. batched coupled-Newton ridge root ``R ~= (A + eps λmax I)^{-1/p}``
-       (the Pallas tile kernel on TPU);
+    1. batched coupled-Newton ridge root ``R ~= (A + eps λmax I)^{-1/p}``;
     2. a matmul-only smooth spectral projector ``P ~= 1{eig(A) > eps
        λmax}`` (`pth_root.batched_spectral_projector`, Newton–Schulz sign
        iteration);
@@ -321,8 +296,8 @@ def _filtered_inv_root(p: int, cov: jax.Array) -> jax.Array:
        commute and the product zero-clips exactly the directions eigh
        drops, while kept directions keep the Newton root's value.
 
-  Everything is batched ``[N, d, d]`` matmuls: the whole construction maps
-  onto the MXU with no per-matrix factorization.  Semantics target:
+  Everything is batched ``[N, d, d]`` matmuls, with no per-matrix
+  factorization.  Semantics target:
   `/root/reference/precondition/tearfree/shampoo.py:466-474`.
   """
   from precondition_tpu.ops import pth_root
@@ -331,7 +306,7 @@ def _filtered_inv_root(p: int, cov: jax.Array) -> jax.Array:
   pads = jnp.full((n,), d, jnp.int32)
   eps = 1e-6
   max_evs = _batched_max_evs(cov, pads)
-  roots = _batched_ridge_root(p, cov, pads, max_evs)
+  roots = _batched_ridge_root(p, cov, pads)
   proj = pth_root.batched_spectral_projector(cov, eps * max_evs)
   out = jnp.einsum("nij,njk,nkl->nil", proj, roots.astype(proj.dtype), proj)
   out = 0.5 * (out + jnp.swapaxes(out, 1, 2))
@@ -349,11 +324,8 @@ _SOLVER_FNS = {
 
 
 def _resolve_solver(solver: str) -> str:
-  """Resolve ``"auto"`` at trace time: the filtered backend on TPU (fast
-  AND eigh-clip semantics), the exact eigh factorization elsewhere."""
-  if solver == "auto":
-    return "filtered" if jax.default_backend() == "tpu" else "eigh"
-  return solver
+  """Resolve ``"auto"`` to the exact eigh factorization."""
+  return "eigh" if solver == "auto" else solver
 
 
 def _update_block_precond(block: _AxesBlocks, meta: _BlocksMeta,

@@ -10,7 +10,7 @@ Update (semantics parity with
   1. scale the sketch by its eigenvalues and sqrt(decay), append the
      unrolled gradient matrix ``[d, m]``;
   2. QR-reduce then SVD (QR first keeps the SVD input square-ish and works
-     around TPU SVD instability; NaN inputs short-circuit to NaN outputs so
+     around SVD instability on wide inputs; NaN inputs short-circuit to NaN outputs so
      the downstream failure gate can catch them);
   3. deflate by the (k+1)-th singular value, accumulate the escaped mass
      into ``tail`` (or extrapolate it from the eigenvalue log-log slope when
@@ -237,7 +237,7 @@ def _update_axis(options: Options, dim: int, path, update,
 
   concat = jnp.concatenate([weighted_sketch * decay, g_dm], axis=1)
   # QR first: a mathematical no-op that keeps the SVD operand [d, d]-ish
-  # (avoids TPU SVD pathologies on wide matrices).
+  # (avoids SVD pathologies on wide matrices).
   reduced = jnp.linalg.qr(concat.T, mode="r").T
   u, s = _safe_svd(reduced, d)
   assert u.shape[0] == d and u.shape[1] >= k

@@ -1,16 +1,15 @@
 """SPMD training loop: jit + Mesh, no pmap.
 
 The reference's loop is pmap + host-side batch slicing
-(`/root/reference/precondition/datamix_gemma/training_loop.py:213-327`); the
-TPU-native version is a single jit'd step over a Mesh with NamedSharding on
-params/batch — XLA inserts the gradient all-reduce over ICI, multihost falls
-out of GSPMD for free, and the optimizer's stacked root solves shard over
-the same mesh.
+(upstream `precondition/datamix_gemma/training_loop.py:213-327`); this
+version is a single jit'd step over a Mesh with NamedSharding on
+params/batch — XLA inserts the gradient all-reduce, multihost falls out of
+GSPMD for free, and the optimizer's stacked root solves shard over the same
+mesh.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Optional, Tuple
 
 import jax
@@ -43,17 +42,48 @@ def make_sharded_train_step(
 
   Params follow ``param_rules`` (regex -> PartitionSpec, see
   `parallel.mesh.shard_params`); the batch shards its leading axis on
-  ``data``.  Optimizer state inherits whatever layout the initial values
-  carry (jit propagates shardings through the state pytree).
+  ``data``.  Params and optimizer state come back with the layout they
+  were passed in with, so each step takes what the last one returned
+  without a reshard or a recompile.  A leaf that is not committed to
+  devices (e.g. eager ``tx.init`` zeros) is replicated over ``mesh``;
+  place the state yourself for another layout.  The step has ``.lower``
+  like a jitted function.
   """
+  del param_rules  # The params carry their layout (`shard_params`).
   step = make_train_step(loss_fn, tx)
+  batch_sharding = NamedSharding(mesh, batch_spec)
+  replicated = NamedSharding(mesh, P())
 
-  @functools.partial(jax.jit, donate_argnums=(0, 1))
-  def sharded_step(params, opt_state, batch):
+  def constrained(params, opt_state, batch):
     batch = jax.lax.with_sharding_constraint(
-        batch, jax.tree.map(lambda _: NamedSharding(mesh, batch_spec), batch))
+        batch, jax.tree.map(lambda _: batch_sharding, batch))
     return step(params, opt_state, batch)
 
+  jitted = {}
+
+  def for_state(params, opt_state):
+    layout = jax.tree.map(
+        lambda x: x.sharding if getattr(x, "committed", False)
+        else replicated, (params, opt_state))
+    leaves, treedef = jax.tree.flatten(layout)
+    key = (treedef, tuple(leaves))
+    if key not in jitted:
+      jitted[key] = jax.jit(
+          constrained, donate_argnums=(0, 1),
+          in_shardings=layout + (None,),
+          out_shardings=(replicated,) + layout)
+    return jitted[key]
+
+  def sharded_step(params, opt_state, batch):
+    # Commit uncommitted leaves first, or the next call (which gets them
+    # back committed) would miss jit's cache and compile again.
+    params, opt_state = jax.tree.map(
+        lambda x: x if getattr(x, "committed", False)
+        else jax.device_put(x, replicated), (params, opt_state))
+    return for_state(params, opt_state)(params, opt_state, batch)
+
+  sharded_step.lower = lambda params, opt_state, batch: for_state(
+      params, opt_state).lower(params, opt_state, batch)
   return sharded_step
 
 

@@ -16,15 +16,16 @@ import jax
 from jax import lax
 import jax.numpy as jnp
 import optax
-from flax import struct
+
+from precondition_tpu.utils import pytree
 
 
 def _zero():
-  return struct.field(default_factory=functools.partial(
+  return pytree.field(default_factory=functools.partial(
       jnp.array, 0, jnp.float32))
 
 
-@struct.dataclass
+@pytree.dataclass
 class InversePthRootDiagnostics:
   """Entrywise residual of ``B^p A - I`` for a computed root ``B``."""
 
@@ -64,7 +65,7 @@ class InversePthRootDiagnostics:
         p=jnp.array(p, jnp.float32))
 
 
-@struct.dataclass
+@pytree.dataclass
 class LOBPCGDiagnostics:
   """Eigenpair consistency ``|Av - λv| / (λ + |Av|)`` and orthogonality."""
 
@@ -98,7 +99,7 @@ class LOBPCGDiagnostics:
         num_topk_eigenvectors=jnp.array(num_topk, jnp.float32))
 
 
-@struct.dataclass
+@pytree.dataclass
 class FDDiagnostics:
   """Health report for frequent-directions preconditioner updates."""
 

@@ -1,6 +1,6 @@
 """Quantized optimizer state: linear-bucket int8/int16 with per-column scales.
 
-Halves (int16) or quarters (int8) the HBM footprint of Shampoo statistics and
+Halves (int16) or quarters (int8) the device-memory footprint of Shampoo statistics and
 momentum.  Scheme (behavioural parity with
 `/root/reference/precondition/quantization_utils.py:26-114`):
 
@@ -12,8 +12,8 @@ momentum.  Scheme (behavioural parity with
   precision and the off-diagonal residue quantises much better;
 * ``bfloat16`` and ``float32`` pass through unquantised.
 
-On TPU the dequantise-multiply fuses into the consuming matmul under XLA, so
-the quantised path costs bandwidth only — which is the point.
+XLA fuses the dequantise-multiply into the consuming op, so the quantised
+path trades compute for memory.
 """
 
 from __future__ import annotations
@@ -21,22 +21,23 @@ from __future__ import annotations
 from typing import Any
 
 import jax
-from flax import struct
 import jax.numpy as jnp
+
+from precondition_tpu.utils import pytree
 
 Array = jax.Array
 
 
-@struct.dataclass
+@pytree.dataclass
 class QuantizedValue:
   """A tensor stored in quantised form plus the metadata to decode it."""
 
   quantized: Any
   diagonal: Any  # full-precision diagonal when extract_diagonal is set
   bucket_size: Any  # per-column scale
-  quantized_dtype: jnp.dtype = struct.field(pytree_node=False)
-  extract_diagonal: bool = struct.field(pytree_node=False)
-  shape: Any = struct.field(pytree_node=False)
+  quantized_dtype: jnp.dtype = pytree.field(pytree_node=False)
+  extract_diagonal: bool = pytree.field(pytree_node=False)
+  shape: Any = pytree.field(pytree_node=False)
 
   @classmethod
   def from_float_value(cls, fvalue, quantized_dtype, extract_diagonal=False):

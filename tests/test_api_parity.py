@@ -3,7 +3,7 @@
 A user of the reference must be able to port configs unchanged
 (MIGRATION.md contract).  These tests pin the *surface*: every reference
 kwarg/Options field exists here with the same default.  Extra kwargs on our
-side are allowed (they are additive TPU features) but must be defaulted so
+side are allowed (they are additive features) but must be defaulted so
 reference call-sites behave identically.
 
 Skipped when the reference checkout is not mounted; the behavioral parity
@@ -68,8 +68,7 @@ def test_distributed_shampoo_signature():
   _sig_parity(
       ref.distributed_shampoo, ours.distributed_shampoo,
       ours_only_allowed=(
-          "solver_backend", "delayed_preconditioning",
-          "generate_detailed_metrics"))
+          "delayed_preconditioning", "generate_detailed_metrics"))
 
 
 def test_grafting_and_preconditioner_enums():

@@ -1,12 +1,14 @@
-"""Guards for the driver-facing bench harness (bench.py).
+"""Guards for the step-time benchmark (bench.py).
 
-bench.py's full fixture is TPU-scale; these tests exercise the timing
-machinery itself on a tiny problem so harness regressions (fence
-semantics, loop program, interleave bookkeeping, deadline truncation)
-fail in CI rather than in the driver's end-of-round TPU run.
+bench.py's fixture is GPU-sized; these tests exercise its timing machinery
+on a tiny problem, and its refusal to run anywhere but on a GPU.
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,8 @@ import numpy as np
 
 import bench
 from precondition_tpu.optim import shampoo
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _tiny():
@@ -32,16 +36,10 @@ class TestBenchHarness:
     tx, params, grads = _tiny()
     cands = [bench._Candidate("a", tx, params, grads, settle_steps=2),
              bench._Candidate("b", tx, params, grads, settle_steps=2)]
-    recorded = []
-    best = bench._measure_pair(cands, iters=3, rounds=2,
-                               record=lambda b: recorded.append(dict(b)))
+    best = bench._measure_pair(cands, {"a": 3, "b": 4}, rounds=2)
     assert set(best) == {"a", "b"}
     for v in best.values():
       assert 0 < v < 60
-    # record() must fire after every round so a deadline cut still emits
-    # the best-known numbers.
-    assert len(recorded) >= 1
-    assert set(recorded[0]) == {"a", "b"}
 
   def test_steps_program_advances_count(self):
     tx, params, grads = _tiny()
@@ -50,117 +48,49 @@ class TestBenchHarness:
     assert int(state.count) == 5
 
   def test_candidate_sample_reuses_compiled_program(self):
-    # k is a traced argument: every window size must reuse one executable.
+    # k is a traced argument: every window size reuses one executable, so
+    # the AOT-compiled program accepts any k.
     tx, params, grads = _tiny()
     cand = bench._Candidate("a", tx, params, grads, settle_steps=2)
+    assert int(cand.state.count) == 2
+    assert cand.compile_s > 0
     s1 = cand.sample(3)
     s2 = cand.sample(5)
     assert s1 > 0 and s2 > 0
 
-  def test_fence_completes_on_pytree(self):
-    tx, params, grads = _tiny()
-    state = tx.init(params)
-    bench._fence(state)  # must not raise on nested state pytrees
-
-  def test_guarded_passes_through_results_and_errors(self):
-    assert bench._guarded("ok", lambda: 42) == 42
-    try:
-      bench._guarded("boom", lambda: 1 / 0)
-      raise AssertionError("expected ZeroDivisionError")
-    except ZeroDivisionError:
-      pass
-
   def test_param_tree_shape_is_stable(self):
-    # The recorded metric's fixture: keep it byte-identical across rounds
-    # so vs_baseline stays comparable. (~58.7M params; the metric name's
-    # "17M" is historical.)
-    n = sum(int(np.prod(p.shape))
-            for p in jax.tree.leaves(bench._param_tree(
-                np.random.RandomState(0))))
+    # The recorded metric's fixture: keep it identical across PRs so the
+    # step times stay comparable (~58.7M params).
+    shapes = jax.eval_shape(
+        lambda: bench._param_tree(np.random.RandomState(0)))
+    n = sum(int(np.prod(p.shape)) for p in jax.tree.leaves(shapes))
     assert n == 58_724_352
 
+  def test_device_fixture_matches_tree_shapes(self):
+    def tree(rng):
+      return {"a": jnp.asarray(rng.randn(4, 6), jnp.float32),
+              "b": jnp.ones(3)}
 
-class TestColdCacheFallback:
-  """End-to-end dispatch logic: a cold cache must still land a headline.
+    params, grads = bench.device_fixture(tree)
+    for x in (params, grads):
+      assert jax.tree.map(jnp.shape, x) == {"a": (4, 6), "b": (3,)}
+    assert not np.allclose(params["a"], grads["a"])
 
-  Runs bench.py as a subprocess (its deadline machinery hard-exits) with
-  CI hooks: BENCH_TEST_TINY_FIXTURE shrinks both fixtures to
-  compile-in-seconds sizes, BENCH_TEST_SLOW_COMPILE=full makes every
-  full-fixture AOT compile hang — the exact round-2/3 failure mode where
-  the driver budget expired inside `prepare:ours`.  The artifact must
-  still carry a non-null reduced-fixture headline.
-  """
+  def test_make_tx_overrides_hypers(self):
+    # An override replaces the fixture's value instead of colliding with it.
+    tx = bench.make_tx(block_size=64)
+    state = tx.init({"w": jnp.zeros((64, 128))})
+    assert state.stats["w"].statistics[0].shape == (2, 64, 64)
 
-  def _run(self, env_extra, timeout=600):
-    import json
-    import os
-    import subprocess
-    import sys
+  def test_steady_window_holds_one_solve(self):
+    overrides, iters, settle = bench.CONFIGS["ours_steady"]
+    assert iters - 1 == overrides["preconditioning_compute_steps"]
+    assert settle > 2 * overrides["preconditioning_compute_steps"]
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ)
-    env.update({
-        "JAX_PLATFORMS": "cpu",
-        "BENCH_NO_COMPILE_CACHE": "1",
-        "BENCH_TEST_TINY_FIXTURE": "1",
-        "BENCH_WARMSTART": "0",
-    })
-    env.update(env_extra)
+  def test_refuses_cpu(self):
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
-        [sys.executable, os.path.join(root, "bench.py")],
-        capture_output=True, text=True, timeout=timeout, env=env, cwd=root)
-    lines = [l for l in out.stdout.splitlines() if l.startswith("{")]
-    assert lines, f"no JSON line; stderr tail: {out.stderr[-2000:]}"
-    return json.loads(lines[-1])
-
-  def test_slow_full_compile_lands_reduced_headline(self):
-    art = self._run({
-        "BENCH_TEST_SLOW_COMPILE": "full",
-        "BENCH_DEADLINE": "420",
-    })
-    assert art["value"] is not None, art
-    assert art["fixture"] == "reduced", art
-    assert art["cold_cache"] is True, art
-    assert art["metric"].endswith("_reduced"), art
-    # The honest relative figure must land with the degraded headline.
-    assert art.get("vs_baseline") is not None, art
-
-  def test_warm_cache_lands_full_headline(self):
-    art = self._run({"BENCH_DEADLINE": "420"})
-    assert art["value"] is not None, art
-    assert art["fixture"] == "full", art
-    assert art.get("vs_baseline") is not None, art
-
-
-class TestKernelRegressionTripwire:
-  """benchmarks/check_regression.py: the perf tripwire's compare logic."""
-
-  def test_within_tolerance_passes(self):
-    from benchmarks import check_regression as cr
-    committed = {"xla_cold_ms": 10.0, "pallas_cold_ms": 8.0}
-    fresh = {"xla_cold_ms": 11.5, "pallas_cold_ms": 9.0,
-             "pallas_cold_err_max": 1e-6}
-    assert cr.compare(fresh, committed, tolerance=1.3) == []
-
-  def test_slowdown_and_error_flagged(self):
-    from benchmarks import check_regression as cr
-    committed = {"xla_cold_ms": 10.0}
-    fresh = {"xla_cold_ms": 14.0, "pallas_cold_err_max": 1e-2}
-    problems = cr.compare(fresh, committed, tolerance=1.3)
-    assert len(problems) == 2
-    assert any("xla_cold_ms" in p for p in problems)
-    assert any("err_max" in p for p in problems)
-
-  def test_missing_keys_ignored(self):
-    from benchmarks import check_regression as cr
-    # A new artifact gaining keys (or an old one lacking them) must not
-    # crash the tripwire.
-    assert cr.compare({"new_key_ms": 5.0}, {"xla_cold_ms": 1.0}, 1.3) == []
-
-  def test_step_breakdown_keys_tripwired(self):
-    from benchmarks import check_regression as cr
-    committed = {"full_step_ms": 80.0, "tearfree_step_newton_ms": 60.0}
-    fresh = {"full_step_ms": 120.0, "tearfree_step_newton_ms": 61.0}
-    problems = cr.compare(fresh, committed, 1.3,
-                          ms_keys=cr._STEP_MS_KEYS, err_keys=())
-    assert len(problems) == 1 and "full_step_ms" in problems[0]
+        [sys.executable, os.path.join(_ROOT, "bench.py")],
+        capture_output=True, text=True, timeout=300, env=env, cwd=_ROOT)
+    assert out.returncode != 0
+    assert '"value"' not in out.stdout and "ms" not in out.stdout, out.stdout

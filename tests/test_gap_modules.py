@@ -318,8 +318,8 @@ class TestTrajectoryPolicyArtifacts:
       return json.load(f)
 
   def test_filtered_backend_trajectory_within_noise(self):
-    # The tearfree default ('auto' -> filtered on TPU) is only justified
-    # while the filtered backend tracks eigh within seed noise.
+    # The filtered backend is an accepted tearfree solver only while it
+    # tracks eigh within seed noise.
     art = self._load("TEARFREE_BACKEND_TRAJ.json")
     assert art["verdict_filtered"] == "agree_within_noise", art[
         "gap_eigh_vs_filtered"]
@@ -327,8 +327,8 @@ class TestTrajectoryPolicyArtifacts:
         "gap_seed_noise_filtered"]
 
   def test_loose_pi_policy_trajectory_within_noise(self):
-    # The loose cold power-iteration exit (SOLVE_GAP_PROBE.json) must
-    # hold at the training level, not just on the probe batch.
+    # The loose cold power-iteration exit (COLD_POWER_ITERATION_TOLERANCE)
+    # must hold at the training level before any solve path adopts it.
     art = self._load("PI_POLICY_TRAJ.json")
     assert art["verdict"] == "agree_within_noise", art[
         "gap_tight_vs_loose"]

@@ -12,6 +12,7 @@ import scipy.stats
 import jax
 import jax.numpy as jnp
 
+from benchmarks import numerics_check
 from precondition_tpu.ops import pth_root
 
 from conftest import requires_reference
@@ -52,18 +53,37 @@ class TestPowerIteration:
 
 class TestMatPower:
 
+  @pytest.mark.parametrize("reference", ["numpy", "traced"])
   @pytest.mark.parametrize("p", [1, 2, 3, 4, 6, 8])
-  def test_matches_numpy(self, p):
-    rng = np.random.RandomState(2)
-    m = rng.randn(6, 6).astype(np.float32) * 0.3
+  def test_static_exponent(self, p, reference):
+    """The unrolled static-exponent power against numpy's and against the
+    traced-exponent while_loop."""
+    if reference == "numpy":
+      m = np.random.RandomState(2).randn(6, 6).astype(np.float32) * 0.3
+      want = np.linalg.matrix_power(m, p)
+      rtol, atol = 2e-4, 2e-5
+    else:
+      m = np.random.RandomState(p).randn(8, 8).astype(np.float32) * 0.3
+      want = pth_root.mat_power(jnp.asarray(m), jnp.asarray(p))
+      rtol, atol = 1e-5, 1e-6
     got = pth_root.mat_power(jnp.asarray(m), p)
-    np.testing.assert_allclose(got, np.linalg.matrix_power(m, p),
-                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
   def test_traced_exponent(self):
     m = jnp.eye(4) * 2.0
     got = jax.jit(pth_root.mat_power)(m, jnp.asarray(3))
     np.testing.assert_allclose(got, np.eye(4) * 8.0, rtol=1e-6)
+
+  def test_static_exponent_solve_matches(self):
+    rng = np.random.RandomState(0)
+    s = rng.randn(3, 12, 12).astype(np.float32)
+    stats = jnp.einsum("nij,nkj->nik", s, s) / 12
+    pads = jnp.full((3,), 12, jnp.int32)
+    r_static, m_static = pth_root.batched_inverse_pth_root(stats, 4, pads)
+    r_dyn, m_dyn = pth_root.batched_inverse_pth_root(
+        stats, jnp.full((3,), 4, jnp.int32), pads)
+    np.testing.assert_allclose(r_static, r_dyn, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(m_static.error, m_dyn.error, rtol=1e-3)
 
 
 class TestPthRootDifference:
@@ -391,3 +411,107 @@ class TestSpectralProjector:
     for p in proj:
       np.testing.assert_allclose(p, p.T, atol=1e-5)
       np.testing.assert_allclose(p @ p, p, atol=5e-3)
+
+
+def _psd_batch(rng, n, m, ridge=0.1):
+  a = rng.randn(n, m, m).astype(np.float32)
+  return jnp.einsum("nij,nkj->nik", a, a) / m + ridge * jnp.eye(m)[None]
+
+
+class TestBatchedRootAgainstFloat64:
+  """The batched solver (the optimizer's only root route) against host
+  float64, independent of the solver's self-reported error."""
+
+  @pytest.mark.parametrize("p", [2, 4, 8])
+  def test_matches_float64_eigh_root(self, p):
+    rng = np.random.RandomState(p)
+    n, m = 12, 16
+    stats = _psd_batch(rng, n, m)
+    pads = jnp.full((n,), m, jnp.int32)
+    roots, met = pth_root.batched_inverse_pth_root(stats, p, pads)
+    summary, failures = numerics_check.compare_with_host(roots, stats, met, p)
+    assert not failures, failures
+    assert summary["members_cond_le_1e6"] == n
+    assert float(jnp.max(met.error)) < 1e-4
+
+  @pytest.mark.parametrize("cond", [1e2, 1e6])
+  def test_true_residual_ill_conditioned(self, cond):
+    """max |H^p (A + r I) - I| recomputed in float64 stays within the
+    float32 storage bound ~100 eps p cond: the contract a coarse-precision
+    scheme broke while self-reporting 1e-6."""
+    rng = np.random.RandomState(int(np.log10(cond)))
+    n, m, p = 4, 32, 4
+    stats = numerics_check.conditioned_batch(rng, n, m, cond)
+    pads = jnp.full((n,), m, jnp.int32)
+    roots, met = pth_root.batched_inverse_pth_root(stats, p, pads)
+    damped = numerics_check.regularized(
+        stats, numerics_check.effective_ridge(met))
+    resid = numerics_check.true_residuals(roots, damped, p)
+    assert np.all(resid < max(100 * 1.2e-7 * p * cond, 1.0)), resid
+
+  def test_mixed_padding_with_all_padding_member(self):
+    rng = np.random.RandomState(2)
+    n, m = 8, 16
+    stats = np.array(_psd_batch(rng, n, m))
+    sizes = [16, 12, 8, 0, 16, 4, 16, 16]
+    for i, d in enumerate(sizes):
+      stats[i, d:, :] = 0.0
+      stats[i, :, d:] = 0.0
+    roots, met = pth_root.batched_inverse_pth_root(
+        jnp.asarray(stats), 4, jnp.asarray(sizes, jnp.int32))
+    roots = np.asarray(roots)
+    np.testing.assert_array_equal(roots[3], 0.0)
+    assert float(met.error[3]) == 0.0
+    ridges = numerics_check.effective_ridge(met)
+    for i, d in enumerate(sizes):
+      if d == 0:
+        continue
+      np.testing.assert_array_equal(roots[i, d:, :], 0.0)
+      np.testing.assert_array_equal(roots[i, :, d:], 0.0)
+      damped = numerics_check.regularized(stats[i:i + 1, :d, :d],
+                                          ridges[i:i + 1])
+      want, _ = numerics_check.eigh_roots(damped, 4)
+      np.testing.assert_allclose(roots[i, :d, :d], want[0],
+                                 rtol=1e-3, atol=1e-5)
+
+  def test_ridge_ladder_member_does_not_derail_batch(self):
+    """A near-singular member climbs the ridge ladder while every healthy
+    member of the same batch still matches its own float64 root."""
+    rng = np.random.RandomState(7)
+    n, m = 8, 16
+    stats = np.array(_psd_batch(rng, n, m, ridge=0.05))
+    q, _ = np.linalg.qr(rng.randn(m, m))
+    stats[0] = (q * np.logspace(0, -12, m)).dot(q.T).astype(np.float32)
+    roots, met = pth_root.batched_inverse_pth_root(
+        jnp.asarray(stats), 4, jnp.full((n,), m, jnp.int32))
+    assert bool(jnp.all(jnp.isfinite(roots)))
+    alone, met_alone = pth_root.matrix_inverse_pth_root(
+        jnp.asarray(stats[0]), 4)
+    assert float(met.retries[0]) == float(met_alone.retries)
+    assert float(jnp.max(met.retries[1:])) <= 1.0
+    summary, failures = numerics_check.compare_with_host(
+        roots[1:], stats[1:], jax.tree.map(lambda x: x[1:], met), 4)
+    assert not failures, failures
+    np.testing.assert_allclose(roots[0], alone, rtol=1e-3, atol=1e-5)
+
+  def test_condition_spread_with_ladder_member(self):
+    """The chip smoke's spread batch, small: cond 1e2..1e6 members match
+    float64, and the member with a negative eigenvalue below the base
+    ridge climbs the ladder and then matches at its escalated ridge."""
+    stats = numerics_check.spread_batch(np.random.RandomState(0), 7, 32)
+    roots, met = pth_root.batched_inverse_pth_root(
+        stats, 4, jnp.full((8,), 32, jnp.int32))
+    summary, failures = numerics_check.compare_with_host(roots, stats, met, 4)
+    assert not failures, failures
+    assert summary["members_cond_le_1e6"] == 8
+    assert float(met.retries[-1]) >= 2.0
+    assert float(jnp.max(met.retries[:-1])) <= 1.0
+
+  def test_host_check_flags_a_wrong_root(self):
+    rng = np.random.RandomState(3)
+    stats = _psd_batch(rng, 4, 16)
+    roots, met = pth_root.batched_inverse_pth_root(
+        stats, 4, jnp.full((4,), 16, jnp.int32))
+    _, failures = numerics_check.compare_with_host(
+        roots * 1.01, stats, met, 4)
+    assert len(failures) == 1 and "1e-3" in failures[0], failures

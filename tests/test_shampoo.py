@@ -539,6 +539,42 @@ class TestShardedMode:
     with pytest.raises(ValueError):
       shampoo.distributed_shampoo(**COMMON, reset_preconditioner=True)
 
+  def test_matches_delayed_default_mode_on_four_devices(self):
+    """ZeRO mode transforms with the roots carried from the previous step,
+    which is the default mode's ``delayed_preconditioning``: the two agree
+    to float32 rounding.  The tree mixes params read as whole chunks of the
+    global stack ("w", "b") with per-slot ones (the ragged "v", the merged
+    rank-3 "t")."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    rng = np.random.RandomState(0)
+    params = {"w": jnp.asarray(rng.randn(16, 24) * 0.5, jnp.float32),
+              "v": jnp.asarray(rng.randn(12, 8) * 0.5, jnp.float32),
+              "t": jnp.asarray(rng.randn(2, 3, 4) * 0.5, jnp.float32),
+              "b": jnp.asarray(rng.randn(16) * 0.5, jnp.float32)}
+    grads = [jax.tree.map(
+        lambda p: jnp.asarray(rng.randn(*p.shape) * 0.1, jnp.float32),
+        params) for _ in range(5)]
+    mesh = Mesh(np.array(jax.devices()[:4]), ("d",))
+    spec = NamedSharding(mesh, P("d"))
+    kw = dict(learning_rate=0.1, block_size=8, start_preconditioning_step=2,
+              graft_type=shampoo.GraftingType.RMSPROP,
+              generate_training_metrics=False)
+    zero_tx = shampoo.distributed_shampoo(
+        **kw, shard_optimizer_states=True, num_devices_for_pjit=4,
+        statistics_partition_spec=spec, preconditioner_partition_spec=spec)
+    delayed_tx = shampoo.distributed_shampoo(
+        **kw, delayed_preconditioning=True)
+    zero_s = jax.jit(zero_tx.init(None).init_fn)(params)
+    delayed_s = delayed_tx.init(params)
+    zero_update, delayed_update = jax.jit(zero_tx.update), jax.jit(
+        delayed_tx.update)
+    for step, g in enumerate(grads):
+      zero_u, zero_s = zero_update(g, zero_s, params)
+      delayed_u, delayed_s = delayed_update(g, delayed_s, params)
+      chex.assert_trees_all_close(zero_u, delayed_u, rtol=1e-5, atol=1e-5,
+                                  custom_message=f"step {step}")
+
   def test_sharded_reuse_preconditioner_matches_cold(self):
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 

@@ -225,9 +225,7 @@ class TestFilteredSolverBackend:
       chex.assert_trees_all_close(ue, uf, rtol=0.1, atol=5e-3)
 
   def test_auto_resolves_to_eigh_off_tpu(self):
-    assert shampoo._resolve_solver("auto") in ("eigh", "filtered")
-    if jax.default_backend() != "tpu":
-      assert shampoo._resolve_solver("auto") == "eigh"
+    assert shampoo._resolve_solver("auto") == "eigh"
 
 
 class TestReshaper:

@@ -3,10 +3,10 @@
 Real N-host hardware is unavailable here, so scaling is verified through
 XLA's compiled cost model on the virtual 8-device mesh: SPMD emits one
 per-device program, and its FLOP/byte counts are exactly what each chip
-would execute.  This pins the property BASELINE.json's north star names
-(">=90% weak-scaling efficiency of the blocked inverse-pth-root + update
-step"): the solve partitions with no redundant compute, so efficiency on
-hardware reduces to the one all-gather riding ICI.
+would execute.  This pins the property the parity bar names (">=90%
+weak-scaling efficiency of the blocked inverse-pth-root + update step",
+BASELINE.md): the solve partitions with no redundant compute, so efficiency
+on hardware reduces to the one all-gather.
 
 (Wall-clock on the 8-virtual-device CPU mesh would oversubscribe 4 cores
 and measure contention, not scaling — hence the cost-model approach.)
